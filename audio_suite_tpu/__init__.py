@@ -1,7 +1,7 @@
-"""audio_suite_tpu — a TPU-native (JAX / XLA / Pallas / pjit) rebuild of the
+"""audio_suite_tpu — a JAX (XLA / Pallas / shard_map) rebuild of the
 capabilities of the maetyu-d/audio-suite experimental-audio suite.
 
-Layout (see /root/repo/SURVEY.md for the blueprint):
+Layout (see SURVEY.md for the blueprint):
 
 - ``utils``    : config dataclasses, WAV + preset I/O, PRNG streams, breakpoints
 - ``ops``      : JAX/Pallas kernels — fixed-point varispeed prefix sums, fractional
@@ -16,10 +16,11 @@ Layout (see /root/repo/SURVEY.md for the blueprint):
 
 Design invariants:
 
-1. No float64 on device (the target TPU rejects f64). All stateful *position*
+1. No float64 on device (f32 throughput, and one dtype on every backend).
+   All stateful *position*
    arithmetic (tape heads, grid phase accumulators) is exact int32 fixed point
    (:mod:`audio_suite_tpu.ops.fixq`), bit-identical to the NumPy oracles in
-   ``/root/repo/oracles``. Audio math is float32.
+   ``oracles/``. Audio math is float32.
 2. Static shapes everywhere under jit; data-dependent counts are capped and
    masked (mirroring the reference's own caps, e.g. ``max_grains``).
 3. Randomness that must match the oracle is precomputed host-side with NumPy

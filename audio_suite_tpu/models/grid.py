@@ -1,6 +1,7 @@
 """Grid Audio engine — multi-track grid DAW mixdown.
 
-Re-creates grid_audio_app_0.2/grid_audio_app.py's render path TPU-first:
+Re-creates grid_audio_app_0.2/grid_audio_app.py's render path as device
+kernels:
 
 - data model (CellSource / Track / MasterClock, :156-233), division system
   with the sandboxed user-code path (:196-213), plugin cells
@@ -548,9 +549,8 @@ def _mix_body(meta: _MixMeta):
                 # the flat bank is gain-premultiplied on the host: a device
                 # `gather*gain + mix` would FMA-contract and diverge from
                 # the host twin by 1 ulp.  The read itself is the blockwise
-                # one-hot MXU kernel (bit-identical to the element gather,
-                # which costs ~8 ns/element on TPU — it was ~85% of the
-                # whole mixdown): speeds are clipped to [0.25, 4] by
+                # one-hot matmul kernel (bit-identical to the element
+                # gather it replaces): speeds are clipped to [0.25, 4] by
                 # envdet, so span=4 bounds every block's window.
                 pat = jax.lax.slice(flat_pat, (tm.base,),
                                     (tm.base + tm.pat_n,))
@@ -758,8 +758,7 @@ def _project_cache_key(project: GridProject) -> bytes:
 
 
 def build_mix_program_cached(project: GridProject):
-    """_build_mix_program memoized on project content (VERDICT r4 item 5:
-    the ~27 ms host pre-pass — user-script cell rendering, pattern
+    """_build_mix_program memoized on project content (the host pre-pass — user-script cell rendering, pattern
     assembly, restart resolution — was paid on every render of an
     UNCHANGED project).  Returns (n_total, rows, prepared_mix); the
     prepared device mix (bank upload + reset tables, ~12 ms) rides the

@@ -36,8 +36,8 @@ _C32 = [np.float32(c) for c in _C]
 
 # exp2 polynomial: 2**r on |r| <= 0.5 as degree-7 Taylor (relative error
 # ~5e-9, under one f32 ulp).  Branchless on purpose: the previous
-# table-by-j/32 refinement cost a per-element 33-entry gather on TPU
-# (~8 ns/element — it dominated Pattern Lab's vibrato buckets).
+# table-by-j/32 refinement cost a per-element 33-entry gather, which
+# dominated Pattern Lab's vibrato buckets.
 _LN2 = float(np.log(2.0))
 _E2C = [np.float32(_LN2 ** k / math.factorial(k)) for k in range(1, 8)]
 

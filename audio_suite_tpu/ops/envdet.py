@@ -17,9 +17,8 @@ Cross-backend float hazards and how each is closed:
 - **Association order**: box sums are assembled from doubling level
   arrays (S_k[j] = sum of 2**k consecutive squares) by explicit shifted
   adds — the same DAG on both backends (XLA does not reassociate float
-  adds), and every access is a STATIC shift, never a gather (TPU element
-  gathers cost ~50 ns each).
-- **div / sqrt rounding**: XLA:TPU pins down neither.  Defense: the
+  adds), and every access is a STATIC shift, never a gather.
+- **div / sqrt rounding**: XLA pins down neither across backends.  Defense: the
   normalize->sqrt->speed stage is pure int32 arithmetic (integer division
   is exact by definition; integer sqrt = f32 estimate + +-1 correction,
   exact regardless of the estimate's rounding).
@@ -88,9 +87,8 @@ def _box_sums_direct(x2, n, win, np_mod):
     decomposition of the window length is CONSTANT across i: level arrays
     S_k[j] = sum P[j : j + 2**k] built by shifted adds, each window
     assembled from the set bits of win at static offsets.  Every access is
-    a static shift — no gathers (a per-element `level[idx]` gather costs
-    ~50 ns/element on TPU; the round-1 form spent ~0.5 s per modded track
-    in the grid mixdown kernel).  Zero prefix differences: the error stays
+    a static shift — no per-element `level[idx]` gathers.  Zero prefix
+    differences: the error stays
     RELATIVE to the box sum (a prefix-difference scheme turns accumulated
     magnitude into absolute error, which the sqrt amplifies near zero).
 

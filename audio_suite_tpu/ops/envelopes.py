@@ -67,7 +67,7 @@ def adsr_from_consts(i, n, n_a, n_d, n_r, inv_na, inv_nd, inv_dr, startv, s):
     """Stage-clamped ADSR from HOST-precomputed per-note constants.
 
     Replaces adsr_clamped's on-device f32 divisions (ramp = i / n_a etc.):
-    XLA:TPU f32 division is not correctly rounded, so the quotient could
+    XLA's device f32 division need not be correctly rounded, so the quotient could
     sit 1 ulp off the oracle's value — and a 1-ulp envelope wiggle upstream
     of the 14-bit DAC quantizer flips a whole quantization step (-78 dBFS
     per flip; coincident flips dominated the long-render parity error).

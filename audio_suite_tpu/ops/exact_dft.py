@@ -1,253 +1,15 @@
-"""Exact-length DFTs at ARBITRARY n on the MXU — the reference's grain
-FFTs run at the true grain length (np.fft.rfft(x) with n = len(x),
-main_v2.py:39-163), not at a padded power of two.  This module gives the
-spectral chain that exact-n semantics on TPU:
-
-- composite n = N1*N2: generalized four-step (two rectangular MXU
-  matmuls + twiddle) — the direct generalization of ops/mxu_fft.py's
-  pow2 path.  At the bench grain length n=19200 (=128*150) this is
-  ~2.4x FEWER complex MACs than the padded pow2-32768 transform it
-  replaces, so exactness is a speedup, not a tax.
-- prime / poorly-factorable n: Bluestein chirp-Z through a pow2
-  FFT of size M >= 2n-1 (host-precomputed chirp constants; the
-  circular chirp has symmetric support so ONE chirp spectrum serves
-  both directions via conjugation).
-- tiny n: XLA's FFT (CPU pocketfft handles any n natively; TPU's
-  non-pow2 FFT custom call is correct but ~400x slower than the MXU
-  four-step at grain shapes — measured 249 ms vs sub-ms for a
-  [64, 19200] roundtrip — so it is correctness fallback only).
-
-All constants are built host-side in f64 with EXACT integer phase
-reduction ((a*b) mod n before the trig), then cast to f32 pairs; matmuls
-run at HIGHEST precision with the Karatsuba 3-mult complex product
-(see ops/mxu_fft.py).
+"""Exact-length real DFTs — the reference's grain FFTs run at the true
+grain length (np.fft.rfft(x) with n = len(x), main_v2.py:39-163), not at
+a padded power of two.  This module gives the spectral chain that
+exact-n API over `jnp.fft`, which takes any n on every backend.
 
 Semantics match np.fft.rfft / np.fft.irfft(Z, n=n) for any n >= 2,
-odd or even (odd n has no Nyquist bin; the half-spectrum inverse
-weights handle both).
+odd or even.
 """
 from __future__ import annotations
 
-import functools
-
-import numpy as np
-import jax
 import jax.numpy as jnp
 
-from . import mxu_fft
-
-_HI = jax.lax.Precision.HIGHEST
-
-#: smallest acceptable factor for the four-step (an 8-row matmul still
-#: rides the MXU; below that the rectangular DFT degenerates)
-_MIN_FACTOR = 8
-
-
-# ---------------------------------------------------------------------------
-# Planning (host)
-# ---------------------------------------------------------------------------
-
-@functools.lru_cache(maxsize=256)
-def factor_balanced(n: int):
-    """Most balanced factorization n = N1*N2 with N1 <= N2 and
-    N1 >= _MIN_FACTOR, or None if none exists (prime / near-prime n)."""
-    best = None
-    d = int(np.sqrt(n))
-    while d >= _MIN_FACTOR:
-        if n % d == 0:
-            best = (d, n // d)
-            break
-        d -= 1
-    return best
-
-
-def plan(n: int, backend: str | None = None) -> str:
-    """Transform plan for length n: 'pow2' (mxu_fft), 'four' (composite
-    four-step), 'bluestein', or 'xla' (jnp.fft — CPU, or tiny n)."""
-    if backend is None:
-        try:
-            backend = jax.default_backend()
-        except Exception:               # pragma: no cover
-            backend = "cpu"
-    if backend != "tpu":
-        return "xla"                     # CPU pocketfft: exact at any n
-    if (n & (n - 1)) == 0:
-        # pow2 lowers to the fast TPU FFT custom call; the MXU four-step
-        # only beats it above _MIN_L (measured, ops/mxu_fft.py)
-        return "pow2" if n >= mxu_fft._MIN_L else "xla"
-    # non-pow2 on TPU: XLA's FFT is correct but ~30-400x slower than the
-    # matmul DFTs even at n=1500 (measured 68 ms vs 2 ms roundtrip for a
-    # [64, 1500] batch) — always take the MXU path
-    return "four" if factor_balanced(n) else "bluestein"
-
-
-# ---------------------------------------------------------------------------
-# Constants (host, exact integer phase reduction)
-# ---------------------------------------------------------------------------
-
-def _cis(num, den, sign=-1):
-    """exp(sign*2j*pi*num/den) with num reduced mod den in exact int64."""
-    r = np.mod(np.asarray(num, np.int64), den)
-    ang = (2.0 * np.pi / den) * r
-    z = np.cos(ang) + 1j * np.sin(ang)
-    return np.conj(z) if sign < 0 else z
-
-
-def _f32pair(z):
-    return (z.real.astype(np.float32), z.imag.astype(np.float32),
-            (z.real + z.imag).astype(np.float32))
-
-
-@functools.lru_cache(maxsize=32)
-def _four_fwd_consts(n: int):
-    N1, N2 = factor_balanced(n)
-    a = np.arange(N1, dtype=np.int64)
-    b = np.arange(N2, dtype=np.int64)
-    k2 = np.arange(N2 // 2 + 1, dtype=np.int64)
-    W1 = _cis(np.outer(a, a), N1)                  # [a, k1]
-    W2 = _cis(np.outer(b, k2), N2)                 # [b, k2]
-    tw = _cis(np.outer(a, b), n)                   # [k1, b]
-    return _f32pair(W1), _f32pair(W2), _f32pair(tw)
-
-
-@functools.lru_cache(maxsize=32)
-def _four_inv_consts(n: int):
-    N1, N2 = factor_balanced(n)
-    a = np.arange(N1, dtype=np.int64)
-    b = np.arange(N2, dtype=np.int64)
-    k2 = np.arange(N2 // 2 + 1, dtype=np.int64)
-    V1 = _cis(np.outer(a, a), N1, sign=+1)         # [k1, a]
-    V2 = _cis(np.outer(k2, b), N2, sign=+1)        # [k2, b]
-    itw = _cis(np.outer(a, b), n, sign=+1)         # [k1, b]
-    return _f32pair(V1), _f32pair(V2), _f32pair(itw)
-
-
-def _half_weights(n: int) -> np.ndarray:
-    """Half-spectrum inverse weights: DC halved; Nyquist halved only for
-    even n (odd n has no Nyquist bin)."""
-    nf = n // 2 + 1
-    h = np.ones(nf, np.float32)
-    h[0] = 0.5
-    if n % 2 == 0:
-        h[nf - 1] = 0.5
-    return h
-
-
-@functools.lru_cache(maxsize=16)
-def _bluestein_consts(n: int):
-    """Chirp constants for length-n Bluestein through a pow2 FFT of size
-    M >= 2n-1.  The circular chirp v_c[j] = exp(i*pi*j^2/n) is laid out
-    with SYMMETRIC support j in (-(n-1), n-1] (v_c[M-j] = v_c[j]), so its
-    spectrum is even and the inverse transform's conjugate chirp spectrum
-    is just conj(v_hat) — one host FFT serves both directions.  Phases
-    use exact int64 reduction of j^2 mod 2n."""
-    nf = n // 2 + 1
-    M = 1
-    while M < 2 * n - 1:
-        M *= 2
-    j = np.arange(max(n, nf), dtype=np.int64)
-    r = np.mod(j * j, 2 * n)                      # j^2 mod 2n, exact
-    ang = (np.pi / n) * r
-    chirp = np.cos(ang) + 1j * np.sin(ang)        # exp(+i*pi*j^2/n)
-    a_ch = np.conj(chirp[:n])                     # exp(-i*pi*m^2/n)
-    k_ch = np.conj(chirp[:nf])
-    vc = np.zeros(M, np.complex128)
-    vc[:n] = chirp[:n]
-    vc[M - n + 1:] = chirp[1:n][::-1]
-    v_hat = np.fft.fft(vc)
-    c64 = lambda z: z.astype(np.complex64)
-    return M, c64(a_ch), c64(k_ch), c64(v_hat), _half_weights(n)
-
-
-# ---------------------------------------------------------------------------
-# Kernels
-# ---------------------------------------------------------------------------
-
-def _cmm3(Ar, Ai, W, sub):
-    """Karatsuba complex x constant-complex einsum (ops/mxu_fft.py)."""
-    Wr, Wi, Ws = (jnp.asarray(w) for w in W)
-    t1 = jnp.einsum(sub, Ar, Wr, precision=_HI)
-    t2 = jnp.einsum(sub, Ai, Wi, precision=_HI)
-    t3 = jnp.einsum(sub, Ar + Ai, Ws, precision=_HI)
-    return t1 - t2, t3 - t1 - t2
-
-
-def _rfft_four(x, n: int):
-    """Exact-n rfft via the composite four-step: index n_idx = N2*a + b,
-    bin k = k1 + N1*k2 with k2 in [0, N2//2] (covers k <= n//2 for even
-    AND odd N2)."""
-    N1, N2 = factor_balanced(n)
-    (W1r, W1i, _), W2, (twr, twi, _) = _four_fwd_consts(n)
-    lead = x.shape[:-1]
-    xg = x.reshape(*lead, N1, N2)
-    Cr = jnp.einsum("...ab,ak->...kb", xg, jnp.asarray(W1r), precision=_HI)
-    Ci = jnp.einsum("...ab,ak->...kb", xg, jnp.asarray(W1i), precision=_HI)
-    Dr = Cr * jnp.asarray(twr) - Ci * jnp.asarray(twi)
-    Di = Cr * jnp.asarray(twi) + Ci * jnp.asarray(twr)
-    Xr, Xi = _cmm3(Dr, Di, W2, "...kb,bq->...qk")
-    nf = n // 2 + 1
-    Xr = Xr.reshape(*lead, -1)[..., :nf]
-    Xi = Xi.reshape(*lead, -1)[..., :nf]
-    return jax.lax.complex(Xr, Xi)
-
-
-def _irfft_four(Z, n: int):
-    """Exact-n half-spectrum inverse four-step (x = (2/n) Re sum h_k Z_k
-    e^{2pi i k m / n}; see ops/mxu_fft.irfft for the pow2 derivation)."""
-    N1, N2 = factor_balanced(n)
-    (V1r, V1i, _), V2, (itwr, itwi, _) = _four_inv_consts(n)
-    nf = n // 2 + 1
-    lead = Z.shape[:-1]
-    h = jnp.asarray(_half_weights(n))
-    Zr = Z.real * h
-    Zi = Z.imag * h
-    P = (N2 // 2 + 1) * N1
-    pz = ((0, 0),) * len(lead) + ((0, P - nf),)
-    Zr = jnp.pad(Zr, pz).reshape(*lead, N2 // 2 + 1, N1)
-    Zi = jnp.pad(Zi, pz).reshape(*lead, N2 // 2 + 1, N1)
-    Ar, Ai = _cmm3(Zr, Zi, V2, "...qk,qb->...kb")
-    Er = Ar * jnp.asarray(itwr) - Ai * jnp.asarray(itwi)
-    Ei = Ar * jnp.asarray(itwi) + Ai * jnp.asarray(itwr)
-    x = (jnp.einsum("...kb,ka->...ab", Er, jnp.asarray(V1r), precision=_HI)
-         - jnp.einsum("...kb,ka->...ab", Ei, jnp.asarray(V1i), precision=_HI))
-    return (x.reshape(*lead, n) * jnp.float32(2.0 / n)).astype(jnp.float32)
-
-
-def _fft_pow2_c2c(z, inverse: bool = False):
-    """Complex pow2 FFT for the Bluestein wrapper.  Uses XLA's FFT (pow2
-    sizes lower to the fast custom call on TPU)."""
-    if inverse:
-        return jnp.fft.ifft(z)
-    return jnp.fft.fft(z)
-
-
-def _rfft_bluestein(x, n: int):
-    M, a_ch, k_ch, v_hat, _ = _bluestein_consts(n)
-    lead = x.shape[:-1]
-    u = x.astype(jnp.complex64) * jnp.asarray(a_ch)
-    u = jnp.pad(u, ((0, 0),) * len(lead) + ((0, M - n),))
-    c = _fft_pow2_c2c(_fft_pow2_c2c(u) * jnp.asarray(v_hat), inverse=True)
-    nf = n // 2 + 1
-    return (c[..., :nf] * jnp.asarray(k_ch)).astype(jnp.complex64)
-
-
-def _irfft_bluestein(Z, n: int):
-    M, a_ch, k_ch, v_hat, h = _bluestein_consts(n)
-    nf = n // 2 + 1
-    lead = Z.shape[:-1]
-    # inverse chirps are the conjugates; conj(v_c) has spectrum
-    # conj(v_hat) because v_c's symmetric support makes v_hat even
-    u = Z * (jnp.asarray(h) * jnp.conj(jnp.asarray(k_ch)))
-    u = jnp.pad(u, ((0, 0),) * len(lead) + ((0, M - nf),))
-    c = _fft_pow2_c2c(_fft_pow2_c2c(u) * jnp.conj(jnp.asarray(v_hat)),
-                      inverse=True)
-    x = (c[..., :n] * jnp.conj(jnp.asarray(a_ch))).real
-    return (x * jnp.float32(2.0 / n)).astype(jnp.float32)
-
-
-# ---------------------------------------------------------------------------
-# Public API
-# ---------------------------------------------------------------------------
 
 def rfft_n(x, n: int):
     """np.fft.rfft(x[..., :n]) at the EXACT length n (static host int).
@@ -256,29 +18,13 @@ def rfft_n(x, n: int):
     n = int(n)
     if x.shape[-1] != n:
         x = x[..., :n]
-    p = plan(n)
-    if p == "pow2":
-        return mxu_fft.rfft(x)
-    if p == "four":
-        return _rfft_four(x, n)
-    if p == "bluestein":
-        return _rfft_bluestein(x, n)
     return jnp.fft.rfft(x)
 
 
 def irfft_n(Z, n: int, out_len: int | None = None):
-    """np.fft.irfft(Z, n=n) at the exact length n; optionally zero-padded
-    back out to `out_len` (the grain buffer length L)."""
-    n = int(n)
-    p = plan(n)
-    if p == "pow2":
-        y = mxu_fft.irfft(Z, n)
-    elif p == "four":
-        y = _irfft_four(Z, n)
-    elif p == "bluestein":
-        y = _irfft_bluestein(Z, n)
-    else:
-        y = jnp.fft.irfft(Z, n=n).astype(jnp.float32)
+    """np.fft.irfft(Z, n=n) at the exact length n as float32; optionally
+    zero-padded back out to `out_len` (the grain buffer length L)."""
+    y = jnp.fft.irfft(Z, n=int(n)).astype(jnp.float32)
     if out_len is not None and out_len > n:
         y = jnp.pad(y, ((0, 0),) * (y.ndim - 1) + ((0, out_len - n),))
     return y

@@ -6,7 +6,7 @@ The reference apps integrate tape position with per-sample Python-float (f64)
 accumulation (TapeTUC ``provide_samples``, tape-tuc-main/Tape_TUC_23-11-25_
 auto-slice_n_record.py:767-911; Scrubber cumulative varispeed,
 scrubber/scrubber_0.7.py:196-202; Grid Audio phase accumulator,
-grid_audio_app_0.2/grid_audio_app.py:786-814).  The target TPU has no float64,
+grid_audio_app_0.2/grid_audio_app.py:786-814).  Device code stays off float64,
 and f32 position accumulation over minutes of audio drifts by whole samples.
 Worse, varispeed playback makes *discrete* decisions from position (section
 lookup, splice-envelope triggers, phase resets); any last-ulp disagreement
@@ -21,7 +21,7 @@ and every per-sample increment is quantized through *single-rounding* f32 ops
 (one IEEE multiply, one exact power-of-two scale, one rint) that produce
 bit-identical integers under XLA and NumPy.  All discrete decisions are then
 pure integer comparisons — the JAX engines and the NumPy oracles in
-``/root/repo/oracles`` agree bit-for-bit, and the remaining (continuous) audio
+``oracles/`` agree bit-for-bit, and the remaining (continuous) audio
 math easily clears the −60 dBFS parity target in f32.
 
 Quantization fidelity vs. the reference's f64 semantics: increments are
@@ -154,8 +154,8 @@ def _hillis_steele_seg(w, f, r, axis, frac_bits: int = POS_FRAC_BITS):
 
     Plain shift-pad-combine steps compile to a handful of static-shape HLO
     ops per level; ``lax.associative_scan``'s recursive odd/even slicing
-    makes XLA:TPU compile times explode past ~1M elements (measured: >10 min
-    at 8M), so multi-M scans must come through here."""
+    makes compile times explode past ~1M elements, so multi-M scans must
+    come through here."""
     n = w.shape[axis]
     shift = 1
     while shift < n:
@@ -181,7 +181,7 @@ def segmented_pos_cumsum(inc, reset, init_whole=0, init_frac=0):
     where ``reset[i]`` restarts the sum *at* element i (position i contributes
     its own increment starting from zero).  Runs as a two-level blocked
     segmented scan (in-block Hillis-Steele over [K, B] rows + a block-carry
-    scan), the TPU-native replacement for the reference's per-sample Python
+    scan), the parallel replacement for the reference's per-sample Python
     accumulators.  Results are bit-identical to a sequential evaluation
     (exact int32 math, associative combine).
 
@@ -249,22 +249,22 @@ def segmented_pos_cumsum_np(inc, reset, init_whole=0, init_frac=0):
 
 
 # ----------------------------------------------------------------------------
-# Integer gather for near-monotonic positions (blockwise one-hot MXU read)
+# Integer gather for near-monotonic positions (blockwise one-hot read)
 # ----------------------------------------------------------------------------
 
 def gather_int_block_onehot(pat, idx, wrap: bool, span: int = 4,
                             B: int = 128, chunk: int = 512,
                             zero_cover: bool = True):
     """``pat[idx]`` for positions that advance by at most ``span`` per
-    sample, as blockwise one-hot MXU matmuls instead of an element gather
-    (TPU gathers cost ~8 ns/element; Grid Audio's mixdown reads 786 k
-    positions per track, grid_audio_app.py:806-810).
+    sample, as blockwise one-hot matmuls (HIGHEST precision, so selection
+    is exact) instead of an element gather (Grid Audio's mixdown reads
+    786 k positions per track, grid_audio_app.py:806-810).
 
     Each ``B``-sample output block reads a contiguous window of ``pat``
     anchored at its first position rounded DOWN to a multiple of B: the
     window fetch is then one lane-aligned row gather for all blocks at
     once, hoisted out of the chunk loop (per-anchor dynamic slices inside
-    the loop serialized into ~1 ms/track on v5e).  A one-hot row per
+    the loop serialize).  A one-hot row per
     output selects its element, so the result is BIT-IDENTICAL to the
     direct gather (one nonzero product per row).  Positions that jump
     backwards mid-block (Grid's phase resets land at 0 at arbitrary
@@ -345,7 +345,7 @@ def gather_int_block_onehot(pat, idx, wrap: bool, span: int = 4,
 def gather_linear_wrap(audio, whole, frac):
     """Wrap-around 2-tap linear interpolated read.
 
-    TPU-native form of Scrubber's ``sample_from_tape_array``
+    Device form of Scrubber's ``sample_from_tape_array``
     (scrubber/scrubber_0.7.py:141-154): positions wrap mod N, two gathers, lerp.
     """
     n = audio.shape[0]
@@ -372,8 +372,7 @@ def gather_linear_wrap_np(audio, whole, frac):
 # ----------------------------------------------------------------------------
 #
 # The engines default to 2-tap linear interpolation because that is the
-# REFERENCE's semantics and the parity oracle's math (BASELINE.md,
-# "Interpolation quality").  The north star names windowed sinc as the
+# REFERENCE's semantics and the parity oracle's math.  The north star names windowed sinc as the
 # production-resampler quality bar; this is that mode: Lanczos-windowed
 # sinc over `taps` neighbours, weight-normalized (exact DC), one packed
 # row gather + K transcendental weight passes per output sample,
@@ -408,8 +407,7 @@ def gather_sinc_wrap(audio, whole, frac, taps: int = 16):
     j in [-taps/2+1, taps/2] with weights sinc(j-fr)*sinc((j-fr)/half),
     normalized to unit sum so constants pass through exactly.
 
-    TPU gathers cost per index, not per byte (~50 ns/element on v5e), so
-    the `taps` neighbours of every sample are packed into a [n, taps] row
+    Element gathers cost per index, not per byte, so the `taps` neighbours of every sample are packed into a [n, taps] row
     table (taps cheap rolled copies of the audio) and the read becomes ONE
     row gather + an in-register weight dot — the same trick as the linear
     read's pair gather, at 1/taps the gather count of the naive form."""

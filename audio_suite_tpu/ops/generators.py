@@ -59,9 +59,9 @@ def masked_conv_same(x, kernel, klen):
     L = x.shape[-1]
     K = kernel.shape[-1]
     k = jnp.where(jnp.arange(K) < klen, kernel, 0.0)
-    # precision: TPU lowers convolve onto the MXU in bf16 by default —
-    # ~1e-3 relative error, which blew the -60 dBFS budget (found by an
-    # on-TPU parity check); HIGHEST keeps f32 fidelity
+    # precision: HIGHEST keeps f32 fidelity — a default-precision
+    # convolution may run in a reduced-precision matrix unit (bf16 or
+    # TF32, ~1e-3 relative error), which breaks the -60 dBFS budget
     full = jnp.convolve(x, k, mode="full",
                         precision=jax.lax.Precision.HIGHEST)
     start = (klen - 1) // 2                          # np 'same' offset

@@ -1,81 +1,66 @@
-"""Overlap-add of event windows into a long buffer — TPU strategies.
+"""Overlap-add of event windows into a long buffer.
 
 Overlap-add is the placement step shared by Microsound grains
 (main_v2.py:742-755) and Pattern Lab notes: out[start_e + j] += vals[e, j].
-XLA lowers `out.at[idx].add(vals)` with arbitrary indices to a generic
-element scatter; measured on v5e for 270x32768 grains into an 800k buffer
-(tools/oa_experiments.py):
+Every path here adds the windows in event order, so overlapping regions
+round exactly like the sequential NumPy oracle's accumulation; an atomic
+scatter-add would not (its order changes from run to run).
 
-  scatter (XLA)                 105 ms
-  dus     (fori_loop of dynamic_slice+add+dynamic_update_slice)   29 ms
-  ring    (Pallas kernel below)  see BASELINE.md — the winning path
+Two paths, one contract, one chooser (`oa_path`):
 
-Three strategies, one contract:
-
-- ``overlap_add_scatter(out, vals, starts)``: the portable fallback.
-- ``overlap_add_dus(out, vals, starts)``: sequential read-modify-write of
-  L-sample windows; bit-identical to the sequential NumPy oracle order.
-- ``ring_overlap_add(out2d, vals3d, rel, nflush, plan)``: Pallas streaming
-  accumulator.  Events arrive (nearly) time-sorted; a VMEM ring holds the
-  live window of the output, each event is shifted to its sub-tile offset
-  with in-kernel VPU/MXU ops (no XLA-side pre-shift gather — the round-1
-  kernel lost to the scatter because of exactly that gather), added into
-  the ring, and finished 8k-sample chunks are flushed to HBM exactly once
-  (read-modify-write, so multiple passes over the same buffer compose).
-  HBM traffic is rows-in + output-once instead of per-event window RMW.
-
-The ring kernel needs a host-side *plan* (`plan_ring`) computed from the
-concrete event starts: the per-event ring base schedule (monotone, chunk-
-quantized) and flush counts.  Infeasible inputs (events too far out of
-order) fall back to DUS automatically in `overlap_add` / the engines.
-
-Determinism: ring adds events in order; overlapping regions accumulate in
-event order exactly like the sequential oracle.  Flush RMW adds each
-chunk once, so cross-call composition is exact.
+- ``overlap_add_dus(out, vals, starts)``: a ``fori_loop`` of one
+  dynamic-slice read-modify-write per event.  Portable; the CPU path.
+- ``tiled_overlap_add(out, vals, plan)``: a Pallas kernel through Triton
+  (the GPU path).  Parallel over output tiles: a host plan
+  (`plan_tiles`) lists, for each tile, the events whose window covers
+  it, in ascending event index.  Each tile loads its `out` values once,
+  adds every covering event's masked slice in list order, and stores
+  once — the same ``((out + v1) + v2) + ...`` per sample as the DUS
+  loop, so the two are bit-equal.  Notes need not be start-sorted.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
 from functools import lru_cache
+from typing import NamedTuple
 
 import numpy as np
 import jax
 import jax.numpy as jnp
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as pl_triton
 
-try:
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-    _HAVE_PALLAS = True
-except Exception:       # pragma: no cover
-    _HAVE_PALLAS = False
+TILE = 1024                      # output samples per kernel block
+NUM_WARPS = 4                    # 128 threads: 8 samples each
 
 
-LANE = 128
-CHUNK_ROWS = 64                  # flush granularity: 8192 samples
-CHUNK = CHUNK_ROWS * LANE
-ACC_ROWS = 1024                  # VMEM ring: 131072 samples (512 kB)
-ACC = ACC_ROWS * LANE
+def oa_path(platform: str | None = None) -> str:
+    """The overlap-add path for a platform (default: JAX's first device):
+    "tiled" (the Pallas kernel) on the GPU, "dus" on the CPU."""
+    if platform is None:
+        platform = jax.devices()[0].platform
+    if platform == "gpu":
+        return "tiled"
+    if platform == "cpu":
+        return "dus"
+    raise RuntimeError(f"no overlap-add path for platform {platform!r}")
 
 
-# ---------------------------------------------------------------------------
-# Portable strategies
-# ---------------------------------------------------------------------------
-
-def overlap_add_scatter(out, vals, starts):
-    """out.at[starts_e + j].add — XLA scatter, drop out-of-range."""
-    E, L = vals.shape
-    idx = starts[:, None].astype(jnp.int32) + jnp.arange(L, dtype=jnp.int32)
-    return out.at[idx.reshape(-1)].add(vals.reshape(-1), mode="drop")
+def buffer_len(out_n: int, L: int) -> int:
+    """Margin-layout OA buffer length (samples) for a render of out_n
+    samples with windows of L: left margin L (absorbs negative starts down
+    to -L), right slack L for windows overhanging the end, rounded up to
+    whole tiles."""
+    raw = L + out_n + L
+    return -(-raw // TILE) * TILE
 
 
 def overlap_add_dus(out, vals, starts):
     """Sequential window read-modify-write via dynamic_update_slice.
 
-    3.6x faster than the scatter on v5e and bit-identical to the
-    sequential oracle's accumulation order.  Starts MUST be in
-    [0, len(out)-L]: XLA clamps out-of-range dynamic-slice starts, which
-    would silently MOVE a window instead of cropping it — callers use a
-    margin buffer (see engines) so every window is in range.
+    Starts MUST be in [0, len(out)-L]: XLA clamps out-of-range
+    dynamic-slice starts, which would silently MOVE a window instead of
+    cropping it — callers use a margin buffer (see engines) so every
+    window is in range.
     """
     E, L = vals.shape
 
@@ -88,208 +73,121 @@ def overlap_add_dus(out, vals, starts):
 
 
 # ---------------------------------------------------------------------------
-# Ring plan (host, concrete starts)
+# Tile plan (host, concrete starts)
 # ---------------------------------------------------------------------------
 
-@dataclass(frozen=True)
-class RingPlan:
-    E: int
-    L: int
-    out_rows: int                # output buffer rows (128 lanes each)
-    feasible: bool
+class TilePlan(NamedTuple):
+    """CSR map from output tiles to covering events.  Entries of tile t are
+    ptr[t]:ptr[t+1]; each holds the event's row `ev` and `off`, the
+    window index at the tile's first sample (tile*TILE - start, in
+    (-TILE, L)).  Arrays are padded to a bound fixed by (E, L, out_len),
+    so one compiled kernel serves every plan of that shape."""
+    ptr: np.ndarray              # i32[n_tiles + 1]
+    ev: np.ndarray               # i32[cap]
+    off: np.ndarray              # i32[cap]
 
 
-def ring_out_len(out_n: int, L: int) -> int:
-    """Padded OA buffer length (samples) for a render of out_n samples with
-    grain windows of L: left margin L (absorbs negative starts up to -L),
-    right slack for windows overhanging the end, rounded to flush chunks."""
-    raw = L + out_n + L + 2 * CHUNK
-    return -(-raw // CHUNK) * CHUNK
+def plan_capacity(E: int, L: int) -> int:
+    """Static bound on plan entries: a window of L samples covers at most
+    ceil(L / TILE) + 1 tiles."""
+    return max(1, E * (-(-L // TILE) + 1))
 
 
-def plan_ring(starts: np.ndarray, L: int, out_len: int):
-    """Compute the ring schedule for concrete window starts (margin already
-    applied; starts[e] in [0, out_len - L - 1024)).
-
-    Returns (rel i32[E], nflush i32[E+1], RingPlan).  rel[e] = the event's
-    offset inside the ring when processed; nflush[e] = chunks flushed
-    before event e; nflush[E] = final flushes.  feasible=False if events
-    are too far out of order for the ring slack (callers fall back to DUS).
-    """
-    starts = np.asarray(starts, np.int64)
-    E = len(starts)
-    R = L // LANE
-    w_rows = R + 16              # shifted window occupancy (see kernel)
-    w = w_rows * LANE
-    out_rows = out_len // LANE
-    assert out_len % CHUNK == 0
-
-    rel = np.zeros(E, np.int32)
-    nflush = np.zeros(E + 1, np.int32)
-    base = 0
-    feasible = bool(np.all(starts >= 0)
-                    and np.all(starts + w <= out_len)
-                    and ACC >= w + CHUNK)
-    if feasible:
-        for e in range(E):
-            need = starts[e] + w - ACC
-            nb = max(base, -(-need // CHUNK) * CHUNK) if need > 0 else base
-            if nb > starts[e]:
-                feasible = False
-                break
-            nflush[e] = (nb - base) // CHUNK
-            base = nb
-            rel[e] = starts[e] - base
-    if feasible:
-        nflush[E] = min(ACC, out_len - base) // CHUNK
-    return rel, nflush, RingPlan(E=E, L=L, out_rows=out_rows,
-                                 feasible=feasible)
+def plan_tiles(starts, L: int, out_len: int) -> TilePlan:
+    """Build the tile plan for concrete window starts.  Starts are clamped
+    to [0, out_len - L] exactly as `overlap_add_dus` clamps them."""
+    tile = TILE
+    assert out_len % tile == 0 and L <= out_len, (out_len, L)
+    starts = np.clip(np.asarray(starts, np.int64), 0, out_len - L)
+    E = starts.shape[0]
+    n_tiles = out_len // tile
+    t0 = starts // tile
+    counts = (starts + L - 1) // tile - t0 + 1
+    ev = np.repeat(np.arange(E, dtype=np.int64), counts)
+    first = np.repeat(np.cumsum(counts) - counts, counts)
+    tiles = np.repeat(t0, counts) + np.arange(ev.size) - first
+    order = np.argsort(tiles, kind="stable")      # keeps event order
+    ev, tiles = ev[order], tiles[order]
+    cap = plan_capacity(E, L)
+    ptr = np.zeros(n_tiles + 1, np.int32)
+    ptr[1:] = np.cumsum(np.bincount(tiles, minlength=n_tiles))
+    ev_p = np.zeros(cap, np.int32)
+    off_p = np.zeros(cap, np.int32)
+    ev_p[:ev.size] = ev
+    off_p[:ev.size] = tiles * tile - starts[ev]
+    return TilePlan(ptr, ev_p, off_p)
 
 
 # ---------------------------------------------------------------------------
-# Ring kernel
+# Tiled kernel (Pallas, Triton route)
 # ---------------------------------------------------------------------------
 
-def _ring_kernel(rel_ref, nflush_ref, vals_ref, out_in_ref, out_ref,
-                 acc, rows, fbuf, ptr, sem_rows, sem_fi, sem_fo):
-    e = pl.program_id(0)
-    E = pl.num_programs(0) - 1
-    R = vals_ref.shape[1]
-    W_ROWS = R + 16
+def _tile_kernel(ptr_ref, ev_ref, off_ref, vals_ref, out_in_ref, out_ref,
+                 *, L: int, tile: int):
+    t = pl.program_id(0)
+    j = jax.lax.broadcasted_iota(jnp.int32, (tile,), 0)
 
-    def row_dma(ev, slot):
-        return pltpu.make_async_copy(vals_ref.at[ev], rows.at[slot],
-                                     sem_rows.at[slot])
+    def add(k, acc):
+        e = ev_ref[k]
+        off = off_ref[k]
+        # vals rows carry `tile` zeros on both sides, so the slice is in
+        # bounds for any off in (-tile, L); the mask keeps samples outside
+        # the window untouched (adding +0.0 would turn -0.0 into +0.0)
+        v = vals_ref[e, pl.ds(off + tile, tile)]
+        w = j + off
+        return jnp.where((w >= 0) & (w < L), acc + v, acc)
 
-    @pl.when(e == 0)
-    def _():
-        acc[:] = jnp.zeros_like(acc)
-        ptr[0] = 0
-        @pl.when(E > 0)
-        def _():
-            row_dma(0, 0).start()
-
-    @pl.when(e + 1 < E)
-    def _():
-        row_dma(e + 1, (e + 1) % 2).start()
-
-    # ---- flush finished chunks: out[chunk] += acc head; ring shifts ----
-    def flush_body(_, out_row):
-        fin = pltpu.make_async_copy(
-            out_ref.at[pl.ds(out_row, CHUNK_ROWS)], fbuf, sem_fi)
-        fin.start()
-        fin.wait()
-        fbuf[:] = fbuf[:] + acc[0:CHUNK_ROWS]
-        fout = pltpu.make_async_copy(
-            fbuf, out_ref.at[pl.ds(out_row, CHUNK_ROWS)], sem_fo)
-        fout.start()
-        fout.wait()
-        acc[0:ACC_ROWS - CHUNK_ROWS] = acc[CHUNK_ROWS:ACC_ROWS]
-        acc[ACC_ROWS - CHUNK_ROWS:] = jnp.zeros((CHUNK_ROWS, LANE),
-                                                jnp.float32)
-        return out_row + CHUNK_ROWS
-
-    ptr[0] = jax.lax.fori_loop(0, nflush_ref[e], flush_body, ptr[0])
-
-    # ---- add this event's window into the ring at its sub-tile shift ----
-    @pl.when(e < E)
-    def _():
-        row_dma(e, e % 2).wait()
-        r = rel_ref[e]
-        row8 = (r >> 10) * 8          # 1024-sample-aligned ring row
-        off = r - (r >> 10) * 1024    # residual shift 0..1023
-        a = off >> 7                  # whole-row part (0..7)
-        b = off - (a << 7)            # lane part (0..127)
-
-        x = rows[e % 2]               # [R, 128]
-        # lane shift by b: circulant one-hot on the MXU; rot[r, j] =
-        # x[r, (j - b) % 128]
-        ii = jax.lax.broadcasted_iota(jnp.int32, (LANE, LANE), 0)
-        jj = jax.lax.broadcasted_iota(jnp.int32, (LANE, LANE), 1)
-        sb = (jnp.where(ii + b >= LANE, ii + b - LANE, ii + b)
-              == jj).astype(jnp.float32)
-        # HIGHEST: default TPU matmul precision truncates inputs to bf16;
-        # the f32x3 decomposition keeps one-hot selection bit-exact
-        rot = jnp.dot(x, sb, preferred_element_type=jnp.float32,
-                      precision=jax.lax.Precision.HIGHEST)
-        # flat shift needs the lane wrap to borrow from the previous row:
-        # y[r, j] = rot[r, j] if j >= b else rot[r-1, j]; one extra row
-        # catches the tail.  Build on W_ROWS rows, rot in rows [0, R).
-        rotp = jnp.pad(rot, ((0, W_ROWS - R), (0, 0)))
-        down = pltpu.roll(rotp, 1, axis=0)
-        ri = jax.lax.broadcasted_iota(jnp.int32, (W_ROWS, LANE), 0)
-        li = jax.lax.broadcasted_iota(jnp.int32, (W_ROWS, LANE), 1)
-        down = jnp.where(ri == 0, 0.0, down)
-        y = jnp.where(li >= b, rotp, down)
-        # whole-row shift by a (0..7): one-hot row shift on the MXU
-        si = jax.lax.broadcasted_iota(jnp.int32, (W_ROWS, W_ROWS), 0)
-        sj = jax.lax.broadcasted_iota(jnp.int32, (W_ROWS, W_ROWS), 1)
-        sa = (si == sj + a).astype(jnp.float32)
-        placed = jnp.dot(sa, y, preferred_element_type=jnp.float32,
-                         precision=jax.lax.Precision.HIGHEST)
-        acc[pl.ds(row8, W_ROWS)] = acc[pl.ds(row8, W_ROWS)] + placed
-
-    del out_in_ref
+    out_ref[...] = jax.lax.fori_loop(ptr_ref[t], ptr_ref[t + 1], add,
+                                     out_in_ref[...])
 
 
-@lru_cache(maxsize=16)
-def _ring_fn(E: int, R: int, out_rows: int):
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,                     # rel, nflush
-        grid=(E + 1,),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.ANY),  # vals [E, R, 128]
-            pl.BlockSpec(memory_space=pltpu.ANY),  # out (aliased)
-        ],
-        out_specs=pl.BlockSpec(memory_space=pltpu.ANY),
-        scratch_shapes=[
-            pltpu.VMEM((ACC_ROWS, LANE), jnp.float32),      # acc ring
-            pltpu.VMEM((2, R, LANE), jnp.float32),          # row slots
-            pltpu.VMEM((CHUNK_ROWS, LANE), jnp.float32),    # flush buf
-            pltpu.SMEM((1,), jnp.int32),                    # out row ptr
-            pltpu.SemaphoreType.DMA((2,)),
-            pltpu.SemaphoreType.DMA(()),
-            pltpu.SemaphoreType.DMA(()),
-        ],
-    )
-    return pl.pallas_call(
-        _ring_kernel,
-        out_shape=jax.ShapeDtypeStruct((out_rows, LANE), jnp.float32),
-        grid_spec=grid_spec,
-        input_output_aliases={3: 0},   # (after 2 prefetch + vals) out_in
-        compiler_params=pltpu.CompilerParams(has_side_effects=True),
+@lru_cache(maxsize=32)
+def _tiled_fn(E: int, L: int, out_len: int, cap: int, interpret: bool):
+    tile = TILE
+    n_tiles = out_len // tile
+    whole = pl.BlockSpec()                 # the full array, every block
+    block = pl.BlockSpec((tile,), lambda t: (t,))
+    kernel = pl.pallas_call(
+        lambda *refs: _tile_kernel(*refs, L=L, tile=tile),
+        out_shape=jax.ShapeDtypeStruct((out_len,), jnp.float32),
+        grid=(n_tiles,),
+        in_specs=[whole, whole, whole, whole, block],
+        out_specs=block,
+        input_output_aliases={4: 0},
+        compiler_params=pl_triton.CompilerParams(num_warps=NUM_WARPS,
+                                                 num_stages=1),
+        interpret=interpret,
+        name="tiled_overlap_add",
     )
 
+    def run(out, vals, ptr, ev, off):
+        vals = jnp.pad(vals.astype(jnp.float32), ((0, 0), (tile, tile)))
+        return kernel(ptr, ev, off, vals, out)
 
-def ring_overlap_add(out, vals, rel, nflush):
-    """out f32[out_len] += windows, per a host plan from `plan_ring`.
+    return run
 
-    out: f32[out_len] (out_len % 8192 == 0); vals: f32[E, L]
-    (L % 1024 == 0); rel/nflush: the plan arrays.  Requires
-    plan.feasible; callers check and fall back to `overlap_add_dus`.
-    """
+
+def tiled_overlap_add(out, vals, plan, *, interpret: bool | None = None):
+    """out f32[out_len] += windows vals f32[E, L] per a `plan_tiles` plan
+    (out_len % TILE == 0).  The kernel is compiled for the GPU; elsewhere
+    (interpret=None off a GPU, or interpret=True) it runs through the
+    Pallas interpreter, which is how the CPU tests reach it."""
+    if interpret is None:
+        interpret = jax.devices()[0].platform != "gpu"
     E, L = vals.shape
-    R = L // LANE
-    out_rows = out.shape[0] // LANE
-    y = _ring_fn(E, R, out_rows)(
-        jnp.asarray(rel, jnp.int32), jnp.asarray(nflush, jnp.int32),
-        vals.reshape(E, R, LANE), out.reshape(out_rows, LANE))
-    return y.reshape(out_rows * LANE)
+    ptr, ev, off = (jnp.asarray(a, jnp.int32) for a in plan)
+    fn = _tiled_fn(E, L, out.shape[0], ev.shape[0], bool(interpret))
+    return fn(out, vals, ptr, ev, off)
 
 
-def ring_available() -> bool:
-    return _HAVE_PALLAS and _on_tpu()
-
-
-def overlap_add(out, vals, starts, use_pallas: bool = False):
-    """Compatibility wrapper: DUS on any backend (use_pallas and the ring
-    path require a host plan — engines call ring_overlap_add directly)."""
-    del use_pallas
-    return overlap_add_dus(out, vals, starts)
-
-
-def _on_tpu() -> bool:
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:       # pragma: no cover
-        return False
+def overlap_add(out, vals, starts, plan: TilePlan | None = None,
+                path: str | None = None):
+    """The OA chooser: `oa_path()` picks the tiled kernel on the GPU and
+    the DUS loop on the CPU.  The tiled path needs a plan: pass one built
+    from concrete starts on the host, or concrete (NumPy) `starts`."""
+    path = path or oa_path()
+    if path == "dus":
+        return overlap_add_dus(out, vals, jnp.asarray(starts, jnp.int32))
+    if plan is None:
+        plan = plan_tiles(np.asarray(starts), vals.shape[1], out.shape[0])
+    return tiled_overlap_add(out, vals, plan)

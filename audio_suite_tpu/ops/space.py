@@ -23,7 +23,7 @@ def fft_convolve_causal(x, kernel, block: int = 1 << 17):
 
     x: f32[N], kernel: f32[K].  The hop is exactly nfft/2, so each output
     position receives contributions from exactly two frames and the
-    overlap-add is a reshape + shifted add — no (TPU-slow) scatter.
+    overlap-add is a reshape + shifted add — no scatter.
     Bounded memory for minute-long renders (SURVEY.md §5).
     """
     x = jnp.asarray(x, jnp.float32)
@@ -32,10 +32,9 @@ def fft_convolve_causal(x, kernel, block: int = 1 << 17):
     K = kernel.shape[0]
     if K == 0:
         return jnp.zeros_like(x)
-    # cap the FFT size: TPU's batched padded rfft produces garbage beyond
-    # ~2^17 total points per transform (observed NaNs at (11, 131072)->
-    # 262144 on v5e); 2^16 keeps a wide safety margin and the extra blocks
-    # are cheap
+    # cap the FFT size at 2^16: the frame batch [nblocks, nfft] is what
+    # the partition holds in memory, so the cap bounds it for minute-long
+    # renders whatever the kernel length; the extra blocks are cheap
     nfft = 1
     while nfft < max(2 * (K - 1), min(2 * block, 2 * N, 1 << 16), 16):
         nfft *= 2
@@ -44,14 +43,11 @@ def fft_convolve_causal(x, kernel, block: int = 1 << 17):
     pad_n = nblocks * hop
     xp = jnp.zeros(pad_n, jnp.float32).at[:N].set(x)
     frames = xp.reshape(nblocks, hop)
-    # grain-path FFT router: MXU four-step for pow2 nfft >= 16384 on TPU
-    # (ops/mxu_fft.py; also immune to the XLA big-FFT issue capped above),
-    # XLA's FFT otherwise.  Explicit zero-pad to nfft for the MXU path.
-    from . import spectral
-    Kf = spectral._rfft(jnp.zeros(nfft, jnp.float32).at[:K].set(kernel))
+    Kf = jnp.fft.rfft(jnp.zeros(nfft, jnp.float32).at[:K].set(kernel))
     fp = jnp.concatenate(
         [frames, jnp.zeros((nblocks, nfft - hop), jnp.float32)], axis=-1)
-    Y = spectral._irfft(spectral._rfft(fp) * Kf[None, :], nfft)
+    Y = jnp.fft.irfft(jnp.fft.rfft(fp) * Kf[None, :], n=nfft) \
+        .astype(jnp.float32)
     # out[b*hop : (b+1)*hop] = Y[b, :hop] + Y[b-1, hop:]
     h1 = Y[:, :hop]
     h2 = jnp.concatenate([jnp.zeros((1, hop), jnp.float32), Y[:-1, hop:]])

@@ -3,7 +3,7 @@ microsound_0.2.1/main_v2.py:39-163, vectorized/vmappable over grain batches.
 
 Exact-length semantics (round 5): every op takes `n_fft` — the TRUE grain
 length (static host int).  When given, the transform runs at exactly n_fft
-(ops/exact_dft.py: composite four-step / Bluestein on the MXU), the bin
+(ops/exact_dft.py), the bin
 grid is n_fft's, and the reference's short-grain guards apply
 (main_v2.py:41,63,105,118,132,152: ops are identity below 8/16/64
 samples) — matching the reference's exact-n rfft bit grid at ANY micro_ms.
@@ -21,23 +21,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from . import exact_dft, mxu_fft
-
-
-def _rfft(x):
-    """rfft on the last axis — MXU four-step for large pow2 L on TPU
-    (2.7x XLA's fft custom call and closer to f64 NumPy, see
-    ops/mxu_fft.py), XLA's FFT otherwise."""
-    L = x.shape[-1]
-    if mxu_fft.use_mxu(L):
-        return mxu_fft.rfft(x)
-    return jnp.fft.rfft(x)
-
-
-def _irfft(Z, L: int):
-    if mxu_fft.use_mxu(L):
-        return mxu_fft.irfft(Z, L)
-    return jnp.fft.irfft(Z, n=L).astype(jnp.float32)
+from . import exact_dft
 
 
 def _freqs(L: int, sr):
@@ -97,8 +81,8 @@ def bandpass_fft(x, sr, lo, hi, roll=0.0, n_fft=None):
 def _lerp_uniform(y, pos):
     """Linear interpolation of y (defined on the uniform grid 0..len-1) at
     fractional positions `pos`, zero outside the grid.  The uniform grid
-    makes jnp.interp's per-query binary search (slow gathers on TPU)
-    unnecessary — direct index arithmetic instead."""
+    makes jnp.interp's per-query binary search unnecessary — direct
+    index arithmetic instead."""
     nf = y.shape[-1]
     valid = (pos >= 0.0) & (pos <= jnp.float32(nf - 1))
     i0 = jnp.clip(jnp.floor(pos), 0.0, jnp.float32(nf - 2))
@@ -112,7 +96,7 @@ def _interp_spectrum(X, k_in):
     """np.interp of Re/Im at fractional bin positions, zero outside
     (main_v2.py:110-114).  Lerp on complex64 directly: scaling a complex by
     a real is per-component, so this equals separate Re/Im interpolation
-    while halving the (TPU-slow) gathers."""
+    while halving the gathers."""
     return _lerp_uniform(X, k_in)
 
 
@@ -120,12 +104,11 @@ def _lerp_uniform_affine(y, scale, block: int = 512, max_scale: float = 4.0):
     """Gather-free lerp of y (uniform grid 0..nf-1) at AFFINE positions
     k*scale, zero outside the grid.
 
-    TPU element gathers cost ~50 ns each (the naive lerp of a 270x16385
-    spectrum batch measured ~0.45 s); affine positions are monotone with
+    Affine positions are monotone with
     bounded step, so each output block of `block` bins only reads a
     contiguous input window of ~max_scale*block bins.  Selection from the
     window is decomposed two-level — local = hi*128 + lo — so each output
-    bin costs one 128-wide one-hot row (MXU matmul against the window
+    bin costs one 128-wide one-hot row (a matmul against the window
     reshaped [H, 128]) plus an H-wide one-hot mask-sum, O(128 + Wd/128)
     per bin instead of the O(Wd) single-level banded matrix (which was the
     grain chain's hot spot: 78 ms of an 85 ms chain at 270x16385).
@@ -198,10 +181,10 @@ def fft_warp_power(x, power, n_fft=None):
 
     The warp grid is precomputed in f64 on the host when `power` is a
     concrete config constant (it always is from the engines —
-    ChainCfg.nl_warp_power is static): TPU's f32 pow is only ~1e-6
-    accurate and its position error flips floor() bin decisions near
-    kmax — measured -31 dBFS against the f64 oracle before this fix
-    (tools/tpu_parity.py "microsound warp hi-rate").  With the host
+    ChainCfg.nl_warp_power is static): a device f32 pow may be only
+    ~1e-6 accurate, and its position error flips floor() bin decisions
+    near kmax — -31 dBFS against the f64 oracle before this fix
+    (tools/parity.py "microsound warp hi-rate").  With the host
     grid only the lerp arithmetic itself remains f32."""
     L = x.shape[-1]
     if n_fft is not None and int(n_fft) < 16:
@@ -274,17 +257,15 @@ def lowpass_stretch_fused_shared(x, sr_v, cutoff_v, factor, roll=0.0,
     Under vmap the per-event traced scale makes XLA rebuild the selection
     one-hots for every event — E x nf x (128+H) element ops that dominated
     the grain chain.  With one shared scale the one-hots are built once per
-    block and every event rides the same MXU matmuls.
+    block and every event rides the same matmuls.
 
-    All A output blocks are batched into ONE einsum (round-3: the previous
-    per-block lax.scan serialized A=128 small matmuls at ~2% MXU
-    utilization — ~5 ms of the fused grain call).  Selection is a SINGLE
-    one-hot over each block's whole window, contracted as [A,B,W]x[A,E,W]
-    (round-3b: the two-level lo/hi form materialized [A,E,H,128] reshapes
-    and an [A,E,B,H] broadcast-reduce — XLA cost_analysis measured 6.7 GB
-    of HBM traffic, pinning the whole fused grain kernel AT the v5e's
-    ~815 GB/s roofline; the flat form touches ~10x fewer bytes and rides
-    the MXU).  One nonzero product per output row, so results stay
+    All A output blocks are batched into ONE einsum (a per-block lax.scan
+    serializes A=128 small matmuls).  Selection is a SINGLE one-hot over
+    each block's whole window, contracted as [A,B,W]x[A,E,W] (the two-level
+    lo/hi form materialized [A,E,H,128] reshapes and an [A,E,B,H]
+    broadcast-reduce — XLA cost_analysis counted 6.7 GB of memory traffic;
+    the flat form touches ~10x fewer bytes).  One nonzero product per
+    output row, so results stay
     bit-identical to a direct gather."""
     E, L = x.shape
     if n_fft is not None and int(n_fft) < 16:
@@ -349,7 +330,7 @@ def lowpass_stretch_fused_shared(x, sr_v, cutoff_v, factor, roll=0.0,
         lambda w: jax.lax.dynamic_slice(Xpad, (0, w), (E, W)))(win)
 
     def lerp_part(xw_r):
-        # [A,B,W] x [A,E,W] -> [A,E,B] on the MXU at HIGHEST precision
+        # [A,B,W] x [A,E,W] -> [A,E,B] at HIGHEST precision (exact selection)
         return jnp.einsum("abw,aew->aeb", wA, xw_r,
                           precision=jax.lax.Precision.HIGHEST)
 
@@ -363,7 +344,7 @@ def lowpass_stretch_fused_shared(x, sr_v, cutoff_v, factor, roll=0.0,
 def fft_partial_stretch(x, factor, n_fft=None):
     """Linear partial stretch via spectrum resampling (main_v2.py:117-128).
     The resample positions k/factor are affine, so the gather-free blockwise
-    MXU lerp applies.  With n_fft the bin grid is the exact grain length's
+    matmul lerp applies.  With n_fft the bin grid is the exact grain length's
     (identity below 16 samples, main_v2.py:118)."""
     L = x.shape[-1]
     if n_fft is not None and int(n_fft) < 16:

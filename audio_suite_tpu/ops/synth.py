@@ -1,4 +1,4 @@
-"""FM / PSG voice kernels — the Mega Drive-ish synth as vmapped TPU math.
+"""FM / PSG voice kernels — the Mega Drive-ish synth as vmapped device math.
 
 Ports of pattern lab 0.1/app/synth_fm.py (4-op phase-modulation voice with
 feedback + vibrato) and app/synth_psg.py (duty square / 15-bit LFSR noise).
@@ -33,7 +33,7 @@ def quantize_to_bits(x, levels_minus_1, inv_levels_m1):
     """Symmetric bit quantization; levels_minus_1 = 2**(bits-1) - 1 (f32).
 
     The downscale is a multiply by a host-precomputed f32 reciprocal, not a
-    division: XLA:TPU f32 division is not guaranteed correctly rounded, and
+    division: device f32 division is not guaranteed correctly rounded, and
     any last-ulp wiggle here lands directly on the quantizer's output grid.
     All ops stay f32 so the NumPy twin (utils/music.quantize_to_bits_f32_np)
     is bit-identical."""
@@ -55,7 +55,7 @@ def one_pole_lp(x, a):
     far under the -60 dBFS oracle budget; association differs from the
     sequential loop by output ulps).  This replaces a log-depth
     associative scan whose slice/pad ladder cost more device time than
-    the entire voice math on v5e.  Falls back to the scan when a is too
+    the entire voice math.  Falls back to the scan when a is too
     close to 1 for a short kernel (K would exceed 64)."""
     try:
         af = float(np.float32(a))   # requires a static (untraced) coefficient
@@ -197,7 +197,7 @@ def fm_note(i, n, f_ops, vel, chan_params, fade_samples, lp_a1, lp_a2,
 
     vib_static: when the caller additionally buckets by lfo_depth > 0,
     False skips the vibrato chain entirely (the LFO sine + the exp2 —
-    whose 33-entry table gather costs per-element on TPU — vanish from
+    whose 33-entry table gather costs per element — vanish from
     the trace; values identical to the where(has_vib=False) select) and
     True applies it unconditionally.  None keeps the dynamic select.
 
@@ -212,7 +212,7 @@ def fm_note(i, n, f_ops, vel, chan_params, fade_samples, lp_a1, lp_a2,
     so the NumPy oracle matches bit-for-bit; the three algorithms are all
     evaluated and selected — branchless for vmap.
 
-    FMA/division discipline: t comes from a reciprocal multiply (XLA:TPU
+    FMA/division discipline: t comes from a reciprocal multiply (device
     division is not guaranteed correctly rounded), and every multiply that
     feeds an add (the PM terms, the feedback tap) uses 12-bit-rounded
     operands so the product is exact and XLA's FMA contraction cannot change
@@ -248,7 +248,7 @@ def fm_note(i, n, f_ops, vel, chan_params, fade_samples, lp_a1, lp_a2,
         if "env_n_a" in chan_params:
             # host-precomputed stage consts: no on-device division, so the
             # envelope is bit-identical to the oracle on every backend
-            # (TPU f32 division is not correctly rounded — see
+            # (device f32 division need not be correctly rounded — see
             # envelopes.adsr_from_consts)
             env = adsr_from_consts(
                 i, n, chan_params["env_n_a"][k], chan_params["env_n_d"][k],

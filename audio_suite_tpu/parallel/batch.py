@@ -3,17 +3,17 @@ mixdowns, and resumable batch manifests.
 
 The reference suite is single-process (SURVEY.md §2.7) — its only "batch"
 feature is Microsound's seeds×unfolds×stretches grid loop
-(microsound_0.2.1/main_v2.py:1524-1596).  The TPU framework makes batch
+(microsound_0.2.1/main_v2.py:1524-1596).  The framework makes batch
 rendering a first-class data-parallel component:
 
-- within a chip:  vmap over grains/notes/tracks (the engine kernels)
-- across chips:   a `jax.sharding.Mesh` with a "dp" axis over render jobs
-                  (seeds × presets × grid variations) riding ICI
+- within a device: vmap over grains/notes/tracks (the engine kernels)
+- across devices: a `jax.sharding.Mesh` with a "dp" axis over render jobs
+                  (seeds × presets × grid variations)
 - within a job:   an optional "ev" axis sharding one render's event batch,
                   reduced with a psum collective (the mixdown-as-collective
                   pattern; also used by Grid Audio's track sum)
-- across hosts:   jax.distributed + the same mesh spanning DCN (initialize
-                  with `jax.distributed.initialize()` before calling in)
+- across hosts:   jax.distributed + the same mesh spanning hosts
+                  (initialize with `jax.distributed.initialize()` first)
 
 Tests fake an 8-device CPU platform via
 ``--xla_force_host_platform_device_count`` (SURVEY.md §4).
@@ -29,18 +29,12 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:                                    # jax >= 0.4.35
-    from jax import shard_map as _shard_map
 
-    def shard_map(f, mesh, in_specs, out_specs):
-        return _shard_map(f, mesh=mesh, in_specs=in_specs,
-                          out_specs=out_specs)
-except ImportError:                     # older jax
-    from jax.experimental.shard_map import shard_map as _shard_map_legacy
-
-    def shard_map(f, mesh, in_specs, out_specs):
-        return _shard_map_legacy(f, mesh=mesh, in_specs=in_specs,
-                                 out_specs=out_specs)
+def shard_map(f, mesh, in_specs, out_specs):
+    """jax.shard_map without varying-axes type checks: a Pallas kernel
+    (the tiled overlap-add) inside the body carries no such types."""
+    return jax.shard_map(f, mesh=mesh, in_specs=in_specs,
+                         out_specs=out_specs, check_vma=False)
 
 
 def make_mesh(n_devices: int | None = None, axis_names=("dp",),

@@ -4,13 +4,13 @@ The reference suite is single-process (SURVEY.md §2.7: its only process
 boundary is the OSC UDP socket, forest_fire_OSC_0.1/osc_out.py:12-25); its
 only batch feature is Microsound's seeds×unfolds×stretches grid loop
 (microsound_0.2.1/main_v2.py:1524-1596) run serially on one machine.  The
-TPU framework scales that batch loop across HOSTS:
+framework scales that batch loop across HOSTS:
 
 - every participating process calls :func:`init_distributed` (standard
   ``jax.distributed.initialize`` coordinator handshake over TCP),
 - :func:`make_global_mesh` builds a ``(dp_host, dp_chip)`` mesh whose first
-  axis is the process boundary — collectives over ``dp_host`` ride DCN,
-  collectives over ``dp_chip`` ride ICI,
+  axis is the process boundary — collectives over ``dp_host`` cross the
+  network between hosts, collectives over ``dp_chip`` stay within a host,
 - :func:`distributed_batch_render` shards the job batch over BOTH axes and
   replicates the results back to every host (the jit's out-sharding is the
   allgather; no manual collectives needed).

@@ -4,7 +4,7 @@
 The reference's only instrumentation is progress callbacks
 (microsound_0.2.1/main_v2.py:599-600,757-758 — kept by the engines); the
 framework's first-class metric is audio-seconds rendered per wall second
-(BASELINE.md), so every CLI render reports it.
+(BASELINE.json), so every CLI render reports it.
 """
 from __future__ import annotations
 

@@ -1,2 +1,2 @@
 """NumPy reference oracles, ported line-by-line from the cited reference
-functions. These are the test ground truth for the TPU engines."""
+functions. These are the test ground truth for the device engines."""

@@ -5,7 +5,7 @@ float64 (np.fft instead of XLA FFT, noise/detmath NumPy twins instead of the
 device kernels), consuming the SAME host program from build_program().  This
 is the framework's CPU reference implementation of the semantics of
 microsound_0.2.1/main_v2.py:588-792 under the documented padded-length grain
-convention; the engine must match it to <= -60 dBFS (BASELINE.md metric).
+convention; the engine must match it to <= -60 dBFS (BASELINE.json metric).
 """
 from __future__ import annotations
 

@@ -49,10 +49,10 @@ def _adsr_env(n, sr, a, d, s, r, min_a, min_r):
     f32 reciprocal MULTIPLIES instead of the reference's f64 linspace
     steps.  Values differ from the literal reference by <= ~1 ulp of the
     envelope (the same order as the reference's own f32 noise); what it
-    buys is a BIT-IDENTICAL envelope between this oracle and the TPU
-    engine — XLA:TPU f32 division is not correctly rounded, and 1-ulp
+    buys is a BIT-IDENTICAL envelope between this oracle and the device
+    engine — device f32 division need not be correctly rounded, and 1-ulp
     envelope wiggles upstream of the DAC quantizer flipped quantization
-    steps that dominated long-render parity error (BASELINE.md)."""
+    steps that dominated long-render parity error."""
     from audio_suite_tpu.ops.envelopes import adsr_consts_np
 
     a = max(min_a, float(a))

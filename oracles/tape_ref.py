@@ -3,7 +3,7 @@
 Line-by-line port of the reference hot loop (tape-tuc-main/
 Tape_TUC_23-11-25_auto-slice_n_record.py:767-911 `provide_samples`), with the
 position/speed state held in the same exact int32 fixed-point representation
-as the TPU engine (audio_suite_tpu/ops/fixq.py).  Every discrete decision
+as the device engine (audio_suite_tpu/ops/fixq.py).  Every discrete decision
 (section lookup, splice trigger, boundary distance) is integer math and
 therefore bit-identical to the engine; the f32 audio math matches to ~1 ulp.
 

@@ -84,7 +84,7 @@ def test_cli_scrub_grid_microsound(tmp_path):
 def test_cli_patternlab_reference_example_script(tmp_path):
     """The --script path (ensure_pattern_lab_examples_importable +
     load_script_generator) against a reference Pattern Lab example
-    (VERDICT r1 #9 / SURVEY §2.3 examples row)."""
+    (SURVEY §2.3 examples row)."""
     script = os.path.join(REF_PL_EXAMPLES, "fibonacci_clock_desync.py")
     if not os.path.exists(script):
         import pytest

@@ -1,4 +1,4 @@
-"""Multi-host DCN dispatch (SURVEY.md §2.7, VERDICT r1 #5): two OS processes
+"""Multi-host dispatch (SURVEY.md §2.7): two OS processes
 join a jax.distributed runtime over local TCP (gloo CPU collectives), build
 the (dp_host, dp_chip) global mesh, shard a batch render over both axes, and
 verify every process receives the full replicated result."""

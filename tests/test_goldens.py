@@ -1,4 +1,4 @@
-"""Golden regression snapshots (broadened per VERDICT r4 item 4).
+"""Golden regression snapshots.
 
 The parity tests compare engines against NumPy oracles that live in this
 repo — a paired engine+oracle change could drift semantics silently.  These

@@ -261,13 +261,12 @@ def test_ceiling_240s_192k_chunked_oa_parity():
     ec = max(1, min(ms._next_pow2(max(1, prog["E"])),
                     (1 << 26) // max(1, L)))
     assert ec * L <= (1 << 26)            # bounded grain memory per chunk
-    chunks, ring_ok = ms._chunk_events(prog, ec)
+    cfg = ms.chain_cfg(p, prog, ec)
+    chunks = ms._chunk_events(prog, cfg)
     assert len(chunks) >= 2               # chunking actually engages
 
-    oa = "ring" if (ring_ok and pallas_oa.ring_available()) else "dus"
-    cfg = ms.chain_cfg(p, prog, ec, oa=oa)
     fn = ms._chunk_fn(cfg)
-    out = np.zeros(pallas_oa.ring_out_len(prog["out_n"], L), np.float32)
+    out = np.zeros(pallas_oa.buffer_len(prog["out_n"], L), np.float32)
     carry = None
     for ch in chunks:
         carry, _, out = fn(ch, carry, out)
@@ -302,7 +301,7 @@ def test_ceiling_240s_192k_end_to_end():
     """The full public-API render at the reference ceiling: 240 s at
     192 kHz, 4000 events, chunked chain + global FX + device PCM16 — the
     'arbitrarily dense fields render in bounded memory' claim, demonstrated
-    at the documented maximum (wall time published in BASELINE.md)."""
+    at the documented maximum."""
     import time
     p = _ceiling_params()
     t0 = time.time()

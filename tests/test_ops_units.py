@@ -215,7 +215,7 @@ def test_adsr_clamped_edge_cases_vs_oracle():
 
 
 def test_sinc_interpolation_quality_and_twins():
-    """Opt-in windowed-sinc read (BASELINE.md interpolation note): must
+    """Opt-in windowed-sinc read (the quality mode): must
     reconstruct a bandlimited signal much better than the linear default,
     and the device/NumPy twins must agree."""
     import jax.numpy as jnp
@@ -279,8 +279,8 @@ def test_sinc_mode_through_engines():
 
 
 def test_blockwise_read_vs_gather():
-    """The scrub blockwise read (row-aligned fetch + two-level one-hot MXU
-    selection) must equal the per-element gather_linear_wrap to ~ulp on a
+    """The scrub blockwise read (row-aligned fetch + two-level one-hot
+    matmul selection) must equal the per-element gather_linear_wrap to ~ulp on a
     random walk with reverse motion and wrap, for every head layout."""
     from audio_suite_tpu.models import scrub
 
@@ -307,7 +307,7 @@ def test_blockwise_read_vs_gather():
 
 
 def test_lowpass_stretch_shared_is_exact_gather_lerp():
-    """The shared-stretch spectral kernel's one-hot MXU selection must
+    """The shared-stretch spectral kernel's one-hot matmul selection must
     equal a direct per-bin gather+lerp of the lowpassed spectrum (one
     nonzero product per output row), at every window-size bucket the
     static stretch hint can produce."""
@@ -350,63 +350,31 @@ def test_lowpass_stretch_shared_is_exact_gather_lerp():
         assert dev < 2e-6, (factor, dev)
 
 
-def test_mxu_fft_matches_numpy():
-    """The four-step MXU DFT (ops/mxu_fft.py) must match np.fft.rfft /
-    irfft to f32 accuracy at every eligible pow2 size, including under
-    vmap (how the grain chain calls it) and for non-Hermitian DC/Nyquist
-    imag parts (the c2r convention: only their real parts contribute)."""
+def test_pow2_fft_matches_numpy():
+    """rfft_n / irfft_n at the pow2 grain and partitioned-conv sizes match
+    np.fft to f32 accuracy, and follow the c2r convention: the imaginary
+    parts of the DC/Nyquist bins do not contribute."""
     import jax
     import jax.numpy as jnp
-    from audio_suite_tpu.ops import mxu_fft
+    from audio_suite_tpu.ops import exact_dft
 
     rng = np.random.default_rng(7)
     for L in (16384, 32768, 65536):   # 65536 = the partitioned-conv nfft
-        E = 3
-        x = rng.standard_normal((E, L)).astype(np.float32)
+        x = rng.standard_normal((3, L)).astype(np.float32)
         ref = np.fft.rfft(x.astype(np.float64))
-        got = np.asarray(jax.jit(mxu_fft.rfft)(jnp.asarray(x)))
+        got = np.asarray(jax.jit(lambda v: exact_dft.rfft_n(v, L))(
+            jnp.asarray(x)))
         scale = np.max(np.abs(ref))
         assert np.max(np.abs(got - ref)) / scale < 2e-6, L
-
-        y = np.asarray(jax.jit(
-            lambda z: mxu_fft.irfft(z, L))(jnp.asarray(
-                ref.astype(np.complex64))))
-        yref = np.fft.irfft(ref, n=L)
+        y = np.asarray(jax.jit(lambda z: exact_dft.irfft_n(z, L))(
+            jnp.asarray(ref.astype(np.complex64))))
         # f32 reduction error grows ~sqrt(L)
-        assert np.max(np.abs(y - yref)) < 2e-6 * (L / 16384) ** 0.5, L
+        assert np.max(np.abs(y - np.fft.irfft(ref, n=L))) \
+            < 2e-6 * (L / 16384) ** 0.5, L
 
-    # vmap over a batch axis (the _tilted_noise call pattern)
     L = 16384
-    x = rng.standard_normal((4, L)).astype(np.float32)
-    via_vmap = np.asarray(jax.jit(jax.vmap(mxu_fft.rfft))(jnp.asarray(x)))
-    direct = np.asarray(jax.jit(mxu_fft.rfft)(jnp.asarray(x)))
-    assert np.array_equal(via_vmap, direct)
-
-    # c2r convention: imag parts of DC/Nyquist bins are ignored
     Z = (rng.standard_normal(L // 2 + 1)
          + 1j * rng.standard_normal(L // 2 + 1)).astype(np.complex64)
-    got = np.asarray(jax.jit(lambda z: mxu_fft.irfft(z, L))(jnp.asarray(Z)))
+    got = np.asarray(exact_dft.irfft_n(jnp.asarray(Z), L))
     ref = np.fft.irfft(Z.astype(np.complex128), n=L)
     assert np.max(np.abs(got - ref)) < 2e-5
-
-
-def test_pallas_read_planning():
-    """ops/pallas_read: the experiment kernel's host-side planning.  The
-    kernel itself is TPU-only (a measured TIE with the XLA blockwise
-    engine — see the module docstring); on CPU only the availability
-    gate and the static dimension planner are exercised."""
-    from audio_suite_tpu.ops import pallas_read
-
-    assert pallas_read.read_available() is False  # CPU backend
-
-    for span in (1, 2, 4, 8):
-        for cb in (16, 32, 64):
-            WB, SPAN = pallas_read.plan_dims(span, cb)
-            assert SPAN % 8 == 0
-            # any in-window block fits: cb blocks advancing `span` rows
-            # per block plus the window itself
-            assert SPAN >= cb * span + WB
-            # window covers a block's worst-case row spread + lerp tap
-            assert WB >= span + 2
-    WB8, _ = pallas_read.plan_dims(4, 32, align8=True)
-    assert WB8 >= pallas_read.plan_dims(4, 32)[0] + 8

@@ -108,8 +108,8 @@ def test_microsound_batch_render_manifest(tmp_path):
 
 
 def test_pallas_overlap_add_fallback_matches_reference():
-    """overlap_add (scatter fallback on CPU; Pallas kernel on TPU) must
-    match the sequential reference accumulation."""
+    """overlap_add (the chooser: DUS loop on CPU, tiled kernel on GPU)
+    must match the sequential reference accumulation."""
     import jax.numpy as jnp
     from audio_suite_tpu.ops import pallas_oa
 
@@ -170,18 +170,14 @@ def test_batch_render_pipelined_matches_single(tmp_path):
         assert np.allclose(got, want, atol=1e-6), seed
 
 
-def test_mxu_fft_under_sharded_vmap():
-    """The MXU four-step DFT must compose with the dp-sharded batch path:
-    its DFT/twiddle tables are trace-time constants that replicate across
-    the mesh while the grain batch shards.  (use_mxu gates it to TPU in
-    production; here the kernel is called directly on the CPU mesh.)"""
+def test_exact_dft_under_sharded_vmap():
+    """The exact-length DFT must compose with the dp-sharded batch path:
+    the grain batch shards over the mesh and each shard transforms its
+    own rows, matching np.fft in f64."""
     require_devices(8)
     from jax.sharding import NamedSharding, PartitionSpec as P
-    try:
-        from jax import shard_map
-    except ImportError:  # pragma: no cover - older JAX
-        from jax.experimental.shard_map import shard_map
-    from audio_suite_tpu.ops import mxu_fft
+    from jax import shard_map
+    from audio_suite_tpu.ops import exact_dft
 
     mesh = pb.make_mesh(8)
     rng = np.random.default_rng(3)
@@ -190,7 +186,7 @@ def test_mxu_fft_under_sharded_vmap():
 
     def per_shard(xs):
         # xs: [1, 4, L] on each device
-        return mxu_fft.irfft(mxu_fft.rfft(xs), L)
+        return exact_dft.irfft_n(exact_dft.rfft_n(xs, L), L)
 
     f = jax.jit(shard_map(per_shard, mesh=mesh,
                           in_specs=P("dp"), out_specs=P("dp")))
@@ -200,7 +196,7 @@ def test_mxu_fft_under_sharded_vmap():
                        n=L, axis=-1)
     assert np.max(np.abs(got - ref)) < 5e-6   # f32 roundtrip, 2 transforms
     # and under plain vmap over the sharded leading axis
-    g = jax.jit(jax.vmap(jax.vmap(mxu_fft.rfft)))
+    g = jax.jit(jax.vmap(jax.vmap(lambda v: exact_dft.rfft_n(v, L))))
     got2 = np.asarray(jnp.abs(g(x)))
     ref2 = np.abs(np.fft.rfft(x.astype(np.float64), axis=-1))
     assert np.max(np.abs(got2 - ref2)) / np.max(ref2) < 2e-6

@@ -149,7 +149,7 @@ def test_script_generator(tmp_path):
 
 
 def test_long_render_parity_floor():
-    """Quantizer-flip floor on a LONG render (VERDICT r1 #4): >= 60 s and
+    """Quantizer-flip floor on a LONG render: >= 60 s and
     >= 2k notes must stay within the -60 dBFS budget.  The FMA/division
     hardening in ops/synth.py (reciprocal-multiply t, f32 quantizer twin,
     12-bit-rounded PM/feedback operands) keeps residual flips at the

@@ -3,9 +3,9 @@
 Each test drives framework code and reference code (imported or
 source-slice-exec'd from /root/reference by tools/ref_crossval.py) with
 identical injected random draws and asserts every row of the section's
-deviation table stays within its documented bound.  This is the layer
-VERDICT r3 asked for: parity claims measured against the reference's own
-math, not against the repo oracles.
+deviation table stays within its documented bound: parity claims
+measured against the reference's own math, not against the repo
+oracles.
 
 The full sweep (incl. the long microsound e2e modes) lives in
 `python tools/ref_crossval.py`; here every section runs with its default

@@ -114,7 +114,7 @@ def test_friction_decay():
 def test_live_head_control_parity(audio):
     """Live control events (keys 1/2/3 head count, Z/X C/V B/N offset
     nudges, R reset, Up/Down base speed — scrubber_0.7.py:320-361) rendered
-    with per-segment reads must match the oracle (VERDICT r3 item 5)."""
+    with per-segment reads must match the oracle."""
     cfg = ScrubConfig(sample_rate=44100, seed=21)
     trace = scrub.scripted_gesture_trace(
         80, 44100, drag_events=[(0.3, 5.0, 0.4)], base_speed=0.5,

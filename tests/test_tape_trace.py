@@ -1,4 +1,4 @@
-"""TapeTrace performance automation (VERDICT r3 item 2).
+"""TapeTrace performance automation.
 
 The reference TapeTUC is an instrument: the user mutates speeds/markers/
 toggles DURING playback under the RLock (Tape…py:768-788) and the recording

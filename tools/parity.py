@@ -1,14 +1,18 @@
-"""On-hardware parity sweep: every engine vs its NumPy oracle on the
-CURRENT default JAX device (run on the real TPU; the CPU test suite cannot
-catch TPU-only numerics — this sweep caught jnp.convolve silently lowering
-to bf16 on the MXU at -51 dBFS).
+"""On-device parity sweep: every engine vs its NumPy oracle on the
+CURRENT default JAX device.  The CPU test suite cannot see how another
+backend contracts, rounds and lowers (a default-precision convolution in
+a reduced-precision matrix unit lands near -51 dBFS), so run this on the
+accelerator.
 
-    python tools/tpu_parity.py            # quick sweep (seconds)
-    python tools/tpu_parity.py --long     # + long-render configs (minutes:
-                                          #   >=60 s / >=2k-note Pattern Lab,
-                                          #   60 s tape, 60 s scrub — the
-                                          #   error-accumulation regime the
-                                          #   quick sweep cannot see)
+    python tools/parity.py            # quick sweep (seconds)
+    python tools/parity.py --long     # + long-render configs (minutes:
+                                      #   128 s / >=6k-note Pattern Lab,
+                                      #   60 s tape, 60 s scrub — the
+                                      #   error-accumulation regime the
+                                      #   quick sweep cannot see)
+
+`quick()` and `long()` return one row per check; chip_smoke.py runs the
+quick sweep through them.
 """
 import argparse
 import os
@@ -22,16 +26,29 @@ import numpy as np  # noqa: E402
 from audio_suite_tpu.utils.metrics import max_dev_dbfs  # noqa: E402
 
 
-def main():
-    import jax
-    print(f"device: {jax.devices()[0]}")
-    failures = []
-
+def _reporter(rows):
     def report(tag, dev, limit=-60.0):
-        ok = dev <= limit
-        print(f"{tag:<28} {dev:8.1f} dBFS   {'OK' if ok else 'FAIL'}")
-        if not ok:
-            failures.append(tag)
+        """A dBFS deviation row (limit in dBFS), or an exactness row when
+        `dev` is a bool (True = bit-exact)."""
+        if isinstance(dev, bool):
+            row = {"check": tag, "value": "bit-exact" if dev else
+                   "DIVERGED", "limit": "bit-exact", "ok": dev}
+        else:
+            row = {"check": tag, "value": round(float(dev), 1),
+                   "limit": limit, "ok": bool(dev <= limit)}
+        rows.append(row)
+        value = row["value"]
+        if not isinstance(value, str):
+            value = f"{value:8.1f} dBFS"
+        print(f"{tag:<34} {value:>13}   {'OK' if row['ok'] else 'FAIL'}",
+              flush=True)
+    return report
+
+
+def quick() -> list:
+    """The quick sweep (seconds): one row per engine path."""
+    rows = []
+    report = _reporter(rows)
 
     sr = 48000
     rng = np.random.default_rng(7)
@@ -123,9 +140,8 @@ def main():
                max_dev_dbfs(out, render_ref(mp, mprog)))
 
     # high-rate NON-shared warp chain: per-event stretch breakpoints at a
-    # design rate that pushes L past the MXU-DFT threshold (16384), so
-    # the vmapped per-event spectral path exercises ops/mxu_fft.py on
-    # this device (the small-L configs above fall through to XLA's fft)
+    # design rate that pushes L to 16384 or more, so the vmapped
+    # per-event spectral path runs at the long grain transforms
     mp = ms.MicrosoundParams.from_dict(dict(
         base_sr=96000, out_dur_s=0.25, time_unfold=60.0, micro_ms=4.0,
         seed=77, grains_per_sec=40.0, max_grains=16,
@@ -156,23 +172,18 @@ def main():
     stats = model.simulate(60)
     _, stats_ref = simulate_np(carry0, 60, ff.ModelParams(w=64, h=48),
                                seed=3)
-    exact = bool(np.array_equal(stats, stats_ref))
-    print(f"{'forestfire CA (60 steps)':<28} "
-          f"{'bit-exact' if exact else 'DIVERGED':>13}   "
-          f"{'OK' if exact else 'FAIL'}")
-    if not exact:
-        failures.append("forestfire")
+    report("forestfire CA (60 steps)", bool(np.array_equal(stats, stats_ref)))
 
     # grid: device table mixdown must equal the host twin BIT-FOR-BIT on
-    # this device (integer placement + envdet twins), and the ring OA
-    # kernel must match the sequential DUS accumulation exactly
+    # this device (integer placement + envdet twins), and the device's
+    # overlap-add path must match the sequential DUS accumulation exactly
     from audio_suite_tpu.models import grid
     from audio_suite_tpu.ops import envdet
     import jax.numpy as jnp
     from audio_suite_tpu.ops import pallas_oa as poa
     n_total = sr * 2
     g_rng = np.random.default_rng(11)
-    rows = [
+    g_rows = [
         {"pat": g_rng.uniform(-0.5, 0.5, 17321).astype(np.float32),
          "start_idx": 0, "loop": True,
          "resets": np.asarray([4000, 61000], np.int32), "mod_src": -1,
@@ -182,56 +193,34 @@ def main():
          "mod_src": 0, "win": 960, "a_q12": envdet.amount_q12(0.9),
          "gain": float(np.float32(0.7))},
     ]
-    mix_d = grid._device_mixdown(n_total, rows)
-    mix_h, _ = grid._host_mixdown(n_total, rows, False)
-    eq = bool(np.array_equal(mix_d, mix_h))
-    print(f"{'grid device==host mixdown':<28} "
-          f"{'bit-exact' if eq else 'DIVERGED':>13}   "
-          f"{'OK' if eq else 'FAIL'}")
-    if not eq:
-        failures.append("grid")
+    mix_d = grid._device_mixdown(n_total, g_rows)
+    mix_h, _ = grid._host_mixdown(n_total, g_rows, False)
+    report("grid device==host mixdown", bool(np.array_equal(mix_d, mix_h)))
 
-    if poa.ring_available():
-        E, L = 24, 4096
-        out_len = poa.ring_out_len(sr, L)
-        vals = g_rng.standard_normal((E, L)).astype(np.float32)
-        starts = np.sort(g_rng.integers(0, sr, E)).astype(np.int64) + L
-        rel, nflush, plan = poa.plan_ring(starts, L, out_len)
-        o0 = jnp.zeros(out_len, jnp.float32)
-        vj = jnp.asarray(vals)
-        ring = np.asarray(poa.ring_overlap_add(o0, vj, rel, nflush))
-        dus = np.asarray(poa.overlap_add_dus(
-            o0, vj, jnp.asarray(starts.astype(np.int32))))
-        eq = plan.feasible and bool(np.array_equal(ring, dus))
-        print(f"{'ring OA == sequential DUS':<28} "
-              f"{'bit-exact' if eq else 'DIVERGED':>13}   "
-              f"{'OK' if eq else 'FAIL'}")
-        if not eq:
-            failures.append("ring_oa")
-
-    if failures:
-        print("FAILURES:", failures)
-        sys.exit(1)
-    print("all engines within budget on this device")
+    E, L = 24, 4096
+    out_len = poa.buffer_len(sr, L)
+    vals = jnp.asarray(g_rng.standard_normal((E, L)).astype(np.float32))
+    starts = g_rng.integers(0, sr, E) + L      # unsorted, like notes
+    o0 = jnp.zeros(out_len, jnp.float32)
+    got = np.asarray(poa.overlap_add(o0, vals, starts,
+                                     path=poa.oa_path()))
+    dus = np.asarray(poa.overlap_add_dus(
+        o0, vals, jnp.asarray(starts.astype(np.int32))))
+    report(f"OA {poa.oa_path()} == sequential DUS",
+           bool(np.array_equal(got.view(np.uint32), dus.view(np.uint32))))
+    return rows
 
 
-def main_long():
-    """Long-render parity on hardware (VERDICT r2 item 6): quantizer /
-    phase-accumulation error grows with render length and note count, so
-    the -60 dBFS budget must be demonstrated AT LENGTH on the TPU, not only
-    at the quick sweep's seconds-scale configs."""
-    import jax
-    print(f"device: {jax.devices()[0]}  [long sweep]")
-    failures = []
-
-    def report(tag, dev, limit=-60.0):
-        ok = dev <= limit
-        print(f"{tag:<34} {dev:8.1f} dBFS   {'OK' if ok else 'FAIL'}")
-        if not ok:
-            failures.append(tag)
+def long() -> list:
+    """Long-render parity: quantizer / phase-accumulation error grows with
+    render length and note count, so the -60 dBFS budget must be shown AT
+    LENGTH on the device, not only at the quick sweep's seconds-scale
+    configs."""
+    rows = []
+    report = _reporter(rows)
 
     # --- Pattern Lab: 128 s, >=6000 notes (synth_fm.py:27-36 quantizer
-    # error regime; round-5 bar from VERDICT r4 item 3) ---
+    # error regime) ---
     from audio_suite_tpu.models import patternlab as pl
     from oracles.patternlab_ref import render_np
     rc = pl.RenderConfig(sample_rate=44100, seconds=128.0, bpm=168, seed=17)
@@ -300,21 +289,31 @@ def main_long():
     print(f"  scrub: {blocks * scrub.BLOCK_SIZE / sr:.0f} s render "
           f"(device {t_dev:.1f} s, oracle {t_ref:.1f} s)")
     report("scrub long (60 s, 3 heads)", max_dev_dbfs(y_s, ref_s), -100.0)
-
-    if failures:
-        print("LONG FAILURES:", failures)
-        sys.exit(1)
-    print("all long-render configs within budget on this device")
+    return rows
 
 
-if __name__ == "__main__":
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--long", action="store_true",
                     help="also run the long-render configs (minutes)")
     ap.add_argument("--long-only", action="store_true",
                     help="run ONLY the long-render configs")
-    args = ap.parse_args()
-    if not args.long_only:
-        main()
+    args = ap.parse_args(argv)
+    import jax
+
+    from audio_suite_tpu.utils import compile_cache
+
+    compile_cache.enable()
+    print(f"device: {jax.devices()[0]}")
+    rows = [] if args.long_only else quick()
     if args.long or args.long_only:
-        main_long()
+        rows += long()
+    failures = [r["check"] for r in rows if not r["ok"]]
+    if failures:
+        print("FAILURES:", failures)
+        sys.exit(1)
+    print("all checks within their bars on this device")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,6 @@
 """Split config-3 (Microsound) wall time into compute vs d2h vs host build.
 
-Run on the real TPU. Prints one JSON line with the breakdown.
+Run on the accelerator. Prints one JSON line with the breakdown.
 """
 import json
 import os
@@ -8,11 +8,9 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(os.path.dirname(
-                          os.path.dirname(os.path.abspath(__file__))),
-                          ".jax_cache"))
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
+from audio_suite_tpu.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 
 import numpy as np
 import jax
@@ -63,11 +61,10 @@ def main():
 
     out_n = prog["out_n"]
     ec = max(1, min(prog["E"], (1 << 26) // max(1, prog["L"])))
-    chunks, ring_ok = ms._chunk_events(prog, ec)
-    oa = "ring" if (ring_ok and pallas_oa.ring_available()) else "dus"
-    cfg = ms.chain_cfg(p, prog, ec, oa=oa)
-    res["oa"] = oa
-    oa_len = pallas_oa.ring_out_len(out_n, prog["L"])
+    cfg = ms.chain_cfg(p, prog, ec)
+    chunks = ms._chunk_events(prog, cfg)
+    res["oa"] = cfg.oa
+    oa_len = pallas_oa.buffer_len(out_n, prog["L"])
     er_kernel = space.er_tap_kernel(int(p.er_taps), float(p.er_max_ms),
                                     int(p.base_sr), int(p.seed))
     irm = ir[:8192].astype(np.float32)

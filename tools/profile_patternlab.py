@@ -1,10 +1,11 @@
 """Stage breakdown of the Pattern Lab bench-batch compute on the current
 device: bucket census, voice math vs overlap-add vs master bus."""
 import os, sys, time
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(os.path.dirname(os.path.dirname(
-                          os.path.abspath(__file__))), ".jax_cache"))
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from audio_suite_tpu.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -33,7 +34,8 @@ def main():
         events.extend(pl.generate(gen, cfg))
     ev = pl.apply_time_ops(events, cfg)
     synth = pl.MegaDriveInspiredSynth(cfg.sample_rate, seed=cfg.seed)
-    print(f"{len(ev)} events over {cfg.seconds}s")
+    print(f"{len(ev)} events over {cfg.seconds}s, "
+          f"overlap-add path {pallas_oa.oa_path()}")
 
     batch = pl.prepare_note_batch(ev, pl.RenderConfig(
         sample_rate=synth.sr, seconds=cfg.seconds, seed=synth.seed))

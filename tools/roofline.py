@@ -1,6 +1,6 @@
 """Roofline check for the two sub-1000x compute kernels (grid mixdown,
 microsound fused chain): XLA cost_analysis flops/bytes vs measured device
-time -> implied HBM bandwidth and MXU utilization, so optimization targets
+time -> implied memory bandwidth and FLOP rate, so optimization targets
 the actual bound instead of guesses.
 
     python tools/roofline.py [grid|ms]
@@ -10,9 +10,9 @@ import sys
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _ROOT)
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(_ROOT, ".jax_cache"))
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
+from audio_suite_tpu.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 
 import time
 import numpy as np
@@ -83,7 +83,7 @@ def grid_case():
 
 def ms_case():
     from audio_suite_tpu.models import microsound as ms
-    from audio_suite_tpu.ops import pallas_oa, space
+    from audio_suite_tpu.ops import space
     sr, seconds = 192000, 4.0
     rng = np.random.default_rng(11)
     ir = (rng.standard_normal(8192) * np.exp(-np.arange(8192) / 800.0)) \
@@ -97,9 +97,8 @@ def ms_case():
         bp_density="", bp_unfold="", bp_cutoff="", bp_stretch="", seed=5))
     prog = ms.build_program(p, ir_audio=ir)
     ec = max(1, min(prog["E"], (1 << 26) // max(1, prog["L"])))
-    chunks, ring_ok = ms._chunk_events(prog, ec)
-    oa = "ring" if (ring_ok and pallas_oa.ring_available()) else "dus"
-    cfg = ms.chain_cfg(p, prog, ec, oa=oa)
+    cfg = ms.chain_cfg(p, prog, ec)
+    chunks = ms._chunk_events(prog, cfg)
     er = space.er_tap_kernel(int(p.er_taps), float(p.er_max_ms), sr,
                              int(p.seed))
     irm = ir[:8192].astype(np.float32)

@@ -18,9 +18,9 @@ import tempfile
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, _ROOT)
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(_ROOT, ".jax_cache"))
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
+from audio_suite_tpu.utils import compile_cache  # noqa: E402
+
+compile_cache.enable()
 
 import numpy as np
 import jax
@@ -31,7 +31,7 @@ REPS = 3
 
 def _microsound():
     from audio_suite_tpu.models import microsound as ms
-    from audio_suite_tpu.ops import pallas_oa, space
+    from audio_suite_tpu.ops import space
 
     sr, seconds = 192000, 4.0
     rng = np.random.default_rng(11)
@@ -45,9 +45,8 @@ def _microsound():
         er_cloud_on=True, space_ir_on=True, stereo_on=True, seed=5))
     prog = ms.build_program(p, ir_audio=ir)
     ec = max(1, min(prog["E"], (1 << 26) // max(1, prog["L"])))
-    chunks, ring_ok = ms._chunk_events(prog, ec)
-    oa = "ring" if (ring_ok and pallas_oa.ring_available()) else "dus"
-    cfg = ms.chain_cfg(p, prog, ec, oa=oa)
+    cfg = ms.chain_cfg(p, prog, ec)
+    chunks = ms._chunk_events(prog, cfg)
     er = space.er_tap_kernel(int(p.er_taps), float(p.er_max_ms), sr,
                              int(p.seed))
     irm = ir[:8192].astype(np.float32)
